@@ -10,7 +10,7 @@ p-modes].  Global ordering keeps component stencils (A as 2x2 of Nu-blocks,
 D as Np x Nu, G as Nu x Np) composed into a saddle operator [[A, G], [D, 0]];
 derived operators needed by the distributive smoother (D@G, Schur) are
 materialized dense — at the reference's scales dense matmuls are the fast
-TPU layout.
+layout.
 """
 
 from dataclasses import dataclass
@@ -673,7 +673,7 @@ class StencilDGS:
     per-element diagonal blocks are inverted (host LAPACK at setup).
 
     Component solves are red-black colored block-GS passes — the documented
-    parallel/TPU deviation from the reference's lexicographic dense sweeps
+    parallel deviation from the reference's lexicographic dense sweeps
     (relaxation.py:220-441); the dense sequential form remains available as
     ``splitting='lsq_dense'``.
     """

@@ -21,8 +21,16 @@ def _build():
     out = os.path.join(_HERE, "librelax.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", out]
-    subprocess.run(cmd, check=True, capture_output=True)
+    # build under a private name and rename into place: processes that
+    # build at once (parallel test workers) never load a half-written file
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

@@ -3,8 +3,8 @@
 // This is dgtpu's analog of the reference's native-code surface: the
 // pyamg.amg_core C++ smoother kernels (bsr_jacobi / bsr_gauss_seidel /
 // block_gauss_seidel) that sit on the reference's hot path
-// (dgfem/pyamg_relaxation.py:168-173, :253-255).  On TPU the production
-// smoothers are XLA/Pallas; these CPU kernels serve the float64 sequential
+// (dgfem/pyamg_relaxation.py:168-173, :253-255).  The production
+// smoothers are XLA graphs; these CPU kernels serve the float64 sequential
 // parity mode (exact pyamg sweep semantics without per-step dispatch
 // overhead) and as an independent validation oracle for the lax.scan path.
 //

@@ -1,10 +1,10 @@
 """Setup-time linear algebra placed on host.
 
-TPU XLA implements LU decomposition only for f32/c64, so float64 inversions
+Set-up runs on the host (``dgtpu.utils.device``), so float64 inversions
 (mass matrices, block-diagonal smoother inverses, coarse-level dense
 factorizations) run on host LAPACK via numpy at setup time.  Everything in
-the solver hot loops is then matmul/einsum, which TPUs execute in emulated
-f64 or native f32.
+the solver hot loops is then matmul/einsum on the compute device, in f64 or
+f32.
 """
 
 import jax.numpy as jnp

@@ -1,20 +1,32 @@
-"""Fused Stokes distributive-GS V-cycle in the SoA (cells-in-lanes) layout.
+"""Stokes distributive-GS V-cycle in the SoA (cells-in-lanes) layout.
 
-Extends the ``ops/pallas_soa.py`` design to the saddle system: the state is
-four lattices per level — velocity ``uv[color] (2Nu, C)`` (element-
-interleaved [u-modes; v-modes]) and pressure ``p[color] (Np, C)`` — and the
-three component stencils A (momentum), G (pressure gradient) and D
-(divergence) become per-color SoA tensors ``(5, B_src, B_dst, C)``.  One
-kernel launch runs the whole V-cycle: distributive-GS smoothing
-(velocity block-GS -> pressure DG-solve -> distributive back-transform,
-``dgfem/relaxation.py:220-441`` semantics in red-black colored form),
-saddle residuals, per-component polynomial/geometric transfers, and the
-dense pinned coarse inverse as cross-lane tensors.
+The rolled-layout cycle (``ops/pallas_vcycle.py``) stores operator blocks as
+(..., B, B) tiles per cell.  This module keeps the *cells* in the trailing
+dimension instead: per color, vectors are ``(B, C)`` and stencils
+``(5, B_src, B_dst, C)`` with ``C = Nj * Ni/2`` cells per color, so a block
+matvec is B_src broadcast-multiply-adds on ``(B_dst, C)`` planes with no
+gathers.  Neighbor fields are rotations of the opposite color's lattice
+along the cell axis (the color-split scheme of ``ops/rolled.py``):
+i-neighbors are +/-1 rolls (O-grid wrap gets an explicit two-roll blend),
+j-neighbors are +/-(Ni/2) rolls.  Geometric (h) transfers and the dense
+coarse inverse act across cells, so they are precomputed host-side as
+dense per-color-pair tensors applied as multiply-reduce over the cells;
+their size grows with the square of the cell count, which bounds the grid
+size this cycle can set up (see ROADMAP).
+
+For the saddle system the state is four lattices per level — velocity
+``uv[color] (2Nu, C)`` (element-interleaved [u-modes; v-modes]) and
+pressure ``p[color] (Np, C)`` — and the three component stencils A
+(momentum), G (pressure gradient) and D (divergence) become per-color SoA
+tensors.  One jitted graph runs the whole V-cycle: distributive-GS
+smoothing (velocity block-GS -> pressure DG-solve -> distributive
+back-transform, ``dgfem/relaxation.py:220-441`` semantics in red-black
+colored form), saddle residuals, per-component polynomial/geometric
+transfers, and the dense pinned coarse inverse as cross-cell tensors.
 
 V-cycle semantics mirror ``dgfem/solver.py:141-207``; the smoother matches
 ``dgtpu.models.stokes.StencilDGS`` (lsq splitting) bit-for-bit in a
-different memory layout.  Layout and kernel structure are TPU-native with
-no reference counterpart.
+different memory layout, which has no reference counterpart.
 """
 
 import numpy as np
@@ -23,10 +35,41 @@ import jax
 import jax.numpy as jnp
 
 from dgtpu.utils.jitting import const_jit
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from dgtpu.ops.pallas_soa import _CHILDREN, _mac, _lane_tensor_apply, _packed_pos
+_CHILDREN = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dj, di), _tile_restrict order
+
+
+def _packed_pos(j, i):
+    """(color, packed ip) of cell (j, i) under the color-split layout."""
+    c = (i + j) % 2
+    ip = (i - (j % 2)) // 2 if c == 0 else (i - 1 + (j % 2)) // 2
+    return c, ip
+
+
+def _mac(blk, f):
+    """sum_b blk[b] * f[b] for blk (B_src, B_dst, C), f (B_src, C),
+    accumulated in f's dtype."""
+    B = f.shape[0]
+    acc = None
+    for b in range(B):
+        term = blk[b].astype(f.dtype) * f[b]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _lane_tensor_apply(T, f):
+    """sum_{b, cells} T[b] * f[b] for T (B, A, C_out, C_in).
+
+    The cross-cell linear maps (geometric transfers, dense coarse inverse):
+    per source mode b, T[b] is (A, C_out, C_in); contract the C_in cells
+    against f[b] and accumulate -> (A, C_out).
+    """
+    B = f.shape[0]
+    acc = None
+    for b in range(B):
+        term = jnp.sum(T[b] * f[b], axis=-1)
+        acc = term if acc is None else acc + term
+    return acc
 
 
 def _soa_blocks(rolled_pair):
@@ -64,7 +107,7 @@ def _blockdiag2(M):
 
 
 class SoAStokesVCycle:
-    """Fused Stokes DGS V-cycle, cells-in-lanes layout.
+    """Stokes DGS V-cycle, cells-in-lanes layout.
 
     Parameters
     ----------
@@ -80,13 +123,12 @@ class SoAStokesVCycle:
     """
 
     def __init__(self, levels, transfers, types, settings, dtype=jnp.float32,
-                 interpret=False, n_pass=2):
+                 n_pass=2):
         from dgtpu.ops import rolled
         from dgtpu.ops.linalg import host_inv
         from dgtpu.parallel.stokes_halo import _dg_diag_blocks
 
         self.dtype = dtype
-        self.interpret = interpret
         self.n_lev = len(levels)
         self.transfers = transfers
         self.types = types
@@ -173,7 +215,7 @@ class SoAStokesVCycle:
                                       "cycle_type", "V")).upper()
         if self.cycle_type not in ("V", "W", "F"):
             raise NotImplementedError(
-                f"the fused Stokes kernel implements V, W and F, not "
+                f"the SoA Stokes cycle implements V, W and F, not "
                 f"{self.cycle_type!r}")
         self.coarse_solver = settings.solver.multigrid.coarse_grid_solver
         if self.coarse_solver in ("direct", "amg"):
@@ -181,78 +223,10 @@ class SoAStokesVCycle:
         else:
             self.coarse = None
 
-    # -- VMEM budget (single source of truth with the builder) ----------------
-
-    @classmethod
-    def estimated_vmem_bytes(cls, levels, transfers=(),
-                             dtype=jnp.float32, with_coarse=True):
-        """Padded VMEM footprint of the fused Stokes hierarchy.
-
-        Same role as ``SoAVCycle.estimated_vmem_bytes``: computed from the
-        exact shapes the constructor builds (A/G/D per color, A_Dinv,
-        DG_diag/Dinv, masks, transfer tensors, dense coarse inverse) with
-        Mosaic's (8, 128) tile padding and a 1.25x temporaries headroom.
-        """
-        from dgtpu.ops.pallas_soa import _pad8, _pad128
-        item = jnp.dtype(dtype).itemsize
-        total = 0
-        for lvl in levels:
-            nu2 = 2 * lvl.N_DOF_sol["u"]
-            npd = lvl.N_DOF_sol["p"]
-            C = _pad128(lvl.Nj * max(lvl.Ni // 2, 1))
-            per_color = 0
-            for br, bc in ((nu2, nu2), (nu2, npd), (npd, nu2)):  # A, G, D
-                per_color += 5 * bc * _pad8(br)
-            per_color += nu2 * _pad8(nu2)           # A_Dinv
-            per_color += 2 * npd * _pad8(npd)       # DG_diag + DG_Dinv
-            total += (2 * per_color + 3 * _pad8(1)) * C * item
-        for k, t in enumerate(transfers):
-            kind = getattr(t, "kind", "penalty")
-            if kind == "penalty":
-                continue
-            lo = levels[k]
-            nu2_c, npd_c = 2 * lo.N_DOF_sol["u"], lo.N_DOF_sol["p"]
-            hi = levels[k + 1]
-            nu2_f, npd_f = 2 * hi.N_DOF_sol["u"], hi.N_DOF_sol["p"]
-            if kind == "polynomial":
-                # R (coarse, fine) and P (fine, coarse) tile-pad
-                # asymmetrically; charge each shape separately
-                total += (_pad8(nu2_c) * _pad128(nu2_f)
-                          + _pad8(nu2_f) * _pad128(nu2_c)
-                          + _pad8(npd_c) * _pad128(npd_f)
-                          + _pad8(npd_f) * _pad128(npd_c)) * item
-            else:                                   # geometric, cf=2
-                Cc = lo.Nj * max(lo.Ni // 2, 1)
-                Cf = 4 * Cc
-                pads = _pad8(Cc) * _pad128(Cf) + _pad8(Cf) * _pad128(Cc)
-                total += 4 * (nu2_c * nu2_f + npd_c * npd_f) * pads * item
-        if with_coarse and levels:
-            l0 = levels[0]
-            B0 = 2 * l0.N_DOF_sol["u"] + l0.N_DOF_sol["p"]
-            C0 = l0.Nj * max(l0.Ni // 2, 1)
-            total += 4 * B0 * B0 * _pad8(C0) * _pad128(C0) * item
-        return int(total * 1.25)
-
-    @property
-    def operand_bytes(self):
-        """Actual (unpadded) bytes of the built operand arrays."""
-        total = 0
-        for group in (self.A, self.G, self.D, self.A_Dinv,
-                      self.DG_diag, self.DG_Dinv):
-            for t in group:
-                total += sum(x.nbytes for x in t)
-        total += sum(m.nbytes for m in self.masks)
-        for t in list(self.soa_R) + list(self.soa_P):
-            if t is not None:
-                total += sum(x.nbytes for x in t)
-        if self.coarse is not None:
-            total += self.coarse.nbytes
-        return total
-
     # -- host-side tensor construction ---------------------------------------
 
     def _geo_tensors(self, k, t, restrict):
-        """Per-component (2, 2, B, B_c, C_out, C_in) lane tensors (cf=2)."""
+        """Per-component (2, 2, B, B_c, C_out, C_in) cell tensors (cf=2)."""
         njc, nic = self.dims[k]
         nhc, nhf = nic // 2, nic
         Cc, Cf = njc * nhc, (2 * njc) * nhf
@@ -530,13 +504,11 @@ class SoAStokesVCycle:
         p01 = tuple(q + e for q, e in zip(p01, pe_p))
         return self._smooth(k, levels[k], f_mom01, f_cont01, uv01, p01, post)
 
-    def _fmg(self, consts, f_mom01, f_cont01, skip_finest=False):
+    def _fmg(self, consts, f_mom01, f_cont01):
         """Full-multigrid (nested-iteration) guess on the Stokes saddle
         hierarchy: restrict (f_mom, f_cont) to the coarsest level, solve,
-        prolong upward with one configured cycle per level.  Fused-path
-        analog of MultigridSolver.fmg_guess.  With ``skip_finest`` the
-        finest-level cycle is left to the caller (who runs it through the
-        fused Mosaic kernel); only the prolonged guess is returned."""
+        prolong upward with one configured cycle per level.  SoA analog of
+        MultigridSolver.fmg_guess."""
         levels, Rs, Ps, coarse = consts
         rhss = [(f_mom01, f_cont01)]
         for k in range(self.n_lev - 1, 0, -1):
@@ -548,36 +520,20 @@ class SoAStokesVCycle:
         uv01, p01 = self._coarse_solve(consts, fm, fc, z_uv, z_p)
         for k in range(1, self.n_lev):
             uv01, p01 = self._prolong(k - 1, Ps[k - 1], uv01, p01)
-            if skip_finest and k == self.n_lev - 1:
-                return uv01, p01
             uv01, p01 = self._cycle(k, consts, rhss[k][0], rhss[k][1],
                                     uv01, p01)
         return uv01, p01
 
-    def build_fmg(self, finest_cycle=None):
-        """fmg(rhs) -> u0: the FMG guess as one jitted XLA graph (one-shot
-        pass — not worth a second Mosaic kernel compile).
-
-        ``finest_cycle``: optional already-built fused cycle
-        ``(rhs, u) -> u`` run in place of the finest level's XLA cycle —
-        that cycle dominates the FMG pass and the fused kernel runs it
-        ~6x faster (measured 0.19 vs 1.18 ms per W-cycle at 8x8), with no
-        extra Mosaic compile since the cycle kernel is already built."""
-        flat, rebuild = self._flat_consts()
-        consts = rebuild(flat)
-        # n_lev == 1: no finest-level cycle to replace (see pallas_soa)
-        skip = finest_cycle is not None and self.n_lev > 1
-        cyc = getattr(finest_cycle, "__wrapped__", finest_cycle)
+    def build_fmg(self):
+        """fmg(rhs) -> u0: the FMG guess as one jitted XLA graph."""
+        consts = self._consts()
 
         @const_jit
         def fmg(rhs):
             self._masked(consts)
-            r32 = rhs.astype(self.dtype)
-            f = self._to_soa(r32)
-            uv01, p01 = self._fmg(consts, (f[0], f[1]), (f[2], f[3]),
-                                  skip_finest=skip)
-            u = self._from_soa(uv01[0], uv01[1], p01[0], p01[1])
-            return cyc(r32, u) if skip else u
+            f = self._to_soa(rhs.astype(self.dtype))
+            uv01, p01 = self._fmg(consts, (f[0], f[1]), (f[2], f[3]))
+            return self._from_soa(uv01[0], uv01[1], p01[0], p01[1])
 
         return fmg
 
@@ -612,63 +568,17 @@ class SoAStokesVCycle:
         n, nu = nj * ni, self.nu[-1]
         return jnp.concatenate([_elem_uv_to_global(uv, n, nu), p])
 
-    # -- kernel construction --------------------------------------------------
+    # -- graph construction ---------------------------------------------------
 
-    def _flat_consts(self):
-        flat = []
+    def _consts(self):
+        """(levels, Rs, Ps, coarse): the operands the cycle closes over."""
+        names = ("A", "G", "D", "A_Dinv", "DG_diag", "DG_Dinv")
+        levels = []
         for k in range(self.n_lev):
-            for group in (self.A[k], self.G[k], self.D[k], self.A_Dinv[k],
-                          self.DG_diag[k], self.DG_Dinv[k]):
-                flat += list(group)
-            flat.append(self.masks[k])
-        for tr in self.soa_R:
-            if tr is not None:
-                flat += list(tr)
-        for tp in self.soa_P:
-            if tp is not None:
-                flat += list(tp)
-        if self.coarse is not None:
-            flat.append(self.coarse)
-
-        n_lev = self.n_lev
-
-        def rebuild(refs):
-            off = 0
-            levels = []
-            for k in range(n_lev):
-                lv = {}
-                for name in ("A", "G", "D", "A_Dinv", "DG_diag", "DG_Dinv"):
-                    lv[name] = (refs[off], refs[off + 1])
-                    off += 2
-                lv["m"] = refs[off][:]
-                off += 1
-                levels.append(lv)
-            Rs, Ps = [], []
-            for tr in self.soa_R:
-                if tr is None:
-                    Rs.append(None)
-                else:
-                    Rs.append((refs[off], refs[off + 1]))
-                    off += 2
-            for tp in self.soa_P:
-                if tp is None:
-                    Ps.append(None)
-                else:
-                    Ps.append((refs[off], refs[off + 1]))
-                    off += 2
-            coarse = None
-            if self.coarse is not None:
-                coarse = refs[off]
-                off += 1
-            # polynomial transfer matrices feed dot_general -> need values
-            for i, t in enumerate(self.transfers):
-                if getattr(t, "kind", None) == "polynomial":
-                    if Rs[i] is not None:
-                        Rs[i] = tuple(r[:] for r in Rs[i])
-                        Ps[i] = tuple(p[:] for p in Ps[i])
-            return levels, Rs, Ps, coarse
-
-        return flat, rebuild
+            lv = {name: tuple(getattr(self, name)[k]) for name in names}
+            lv["m"] = self.masks[k]
+            levels.append(lv)
+        return levels, list(self.soa_R), list(self.soa_P), self.coarse
 
     def _masked(self, consts):
         """Stage the per-level masks list used by _nbr_fields."""
@@ -676,9 +586,8 @@ class SoAStokesVCycle:
         self._masks_r = [lv["m"] for lv in levels]
 
     def build_xla(self):
-        """The same cycle as plain jitted XLA ops (CPU-testable)."""
-        flat, rebuild = self._flat_consts()
-        consts = rebuild(flat)
+        """One Stokes DGS cycle ``(rhs, u) -> u`` as a jitted XLA graph."""
+        consts = self._consts()
 
         @const_jit
         def one_cycle(rhs, u):
@@ -696,8 +605,7 @@ class SoAStokesVCycle:
         """f32 finest-level saddle matvec (flat global-order vectors) — the
         operator for Krylov-wrapped refinement
         (``make_refined_solver(inner='gmres')``)."""
-        flat, rebuild = self._flat_consts()
-        consts = rebuild(flat)
+        consts = self._consts()
         top = self.n_lev - 1
 
         @const_jit
@@ -712,51 +620,6 @@ class SoAStokesVCycle:
             return -self._from_soa(rm[0], rm[1], rc[0], rc[1])
 
         return matvec
-
-    def build(self):
-        flat, rebuild = self._flat_consts()
-        n_in = 8 + len(flat)
-        nj, ni = self.dims[-1]
-        C = nj * (ni // 2)
-        Bu, Bp = 2 * self.nu[-1], self.npd[-1]
-        n_lev = self.n_lev
-
-        def kernel(*refs):
-            fm0, fm1, fc0, fc1 = (refs[0][:], refs[1][:],
-                                  refs[2][:], refs[3][:])
-            u0, u1, q0, q1 = (refs[4][:], refs[5][:], refs[6][:], refs[7][:])
-            consts = rebuild(refs[8:-4])
-            self._masked(consts)
-            o = refs[-4:]
-            uv01, p01 = self._cycle(n_lev - 1, consts, (fm0, fm1),
-                                    (fc0, fc1), (u0, u1), (q0, q1))
-            o[0][:] = uv01[0]
-            o[1][:] = uv01[1]
-            o[2][:] = p01[0]
-            o[3][:] = p01[1]
-
-        vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-        call = pl.pallas_call(
-            kernel,
-            out_shape=[jax.ShapeDtypeStruct((Bu, C), self.dtype)] * 2
-            + [jax.ShapeDtypeStruct((Bp, C), self.dtype)] * 2,
-            in_specs=[vspec] * n_in,
-            out_specs=[vspec] * 4,
-            interpret=self.interpret,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=120 * 1024 * 1024),
-        )
-
-        @const_jit
-        def one_cycle(rhs, u):
-            f = self._to_soa(rhs.astype(self.dtype))
-            x = self._to_soa(u.astype(self.dtype))
-            uv0, uv1, p0, p1 = call(f[0], f[1], f[2], f[3],
-                                    x[0], x[1], x[2], x[3], *flat)
-            return self._from_soa(uv0, uv1, p0, p1)
-
-        self._fn = one_cycle
-        return one_cycle
 
     def to_device(self, device):
         put = lambda t: tuple(jax.device_put(x, device) for x in t)

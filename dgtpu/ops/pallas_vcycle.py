@@ -1,22 +1,15 @@
-"""The whole multigrid V-cycle as ONE fused Pallas TPU kernel.
+"""The whole multigrid V-cycle as one jitted graph in the rolled layout.
 
-At the reference's scales every multigrid level fits comfortably in VMEM
-(flagship 8x8 p=5 Poisson: ~2 MB of f32 operator blocks across all levels),
-so the entire cycle — pre-smooths, residual, restriction, recursion, coarse
-solve, prolongation, post-smooths — compiles to a single kernel with zero
-HBM roundtrips and zero inter-op launch gaps.  This is the speed-of-light
-implementation of the BASELINE north-star metric; the XLA multi-op path
-(solvers/multigrid.py) remains the reference implementation.
+Operators are stored as rolled (Nj, Ni, 5, B, B) lattices (``ops/rolled.py``)
+and the cycle — pre-smooths, residual, restriction, recursion, coarse solve,
+prolongation, post-smooths — is traced as one XLA program.  It is the f32
+inner cycle of the Poisson mixed-precision route (``api.DGFEM``); the XLA
+multi-op path (solvers/multigrid.py) remains the reference implementation.
 
-Mosaic (Pallas TPU) lowering constraints shape the code (established by
-kernel bisection on v5e):
-  * block matvecs: broadcast-multiply-reduce (no multi-batch tpu.matmul)
-  * color selects: precomputed float masks (no int compare + where)
-  * tile gather/scatter: leading-dim reshape splits/merges + static middle
-    indices (strided slices lower to unsupported >2D gathers; leading-dim
-    transposes do not lower)
-  * coarse dense solve: per-tile bmv accumulation over a 6D-blocked inverse
-    (full flattening collapses the lane dimension)
+The block matvecs are single-batch ``dot_general``s, colors are selected by
+precomputed float masks, tile gathers and scatters are leading-dim reshapes,
+and the dense coarse solve is a loop of per-tile block matvecs over a
+column-blocked inverse, so the graph size does not grow with the coarse grid.
 
 Supports p-/penalty-/geometric transfers and red-black smoothing in f32/f64.
 """
@@ -25,8 +18,6 @@ import jax
 import jax.numpy as jnp
 
 from dgtpu.utils.jitting import const_jit
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from dgtpu.ops import rolled
 from dgtpu.ops.linalg import host_inv, host_lu_inverse
@@ -36,9 +27,7 @@ def _tile_restrict(r, R4, nj_c, ni_c):
     """(2nj_c, 2ni_c, B) x (4, B_c, B) -> (nj_c, ni_c, B_c).
 
     The per-child split of the restriction matrix (host-precomputed) turns
-    the tile gather into a sum of four dots — no last-dim concatenate, which
-    current Mosaic rejects ("result/input offset mismatch on non-concat
-    dimension" on tpu.concatenate of offset-laid-out slices).
+    the tile gather into a sum of four dots, with no last-dim concatenate.
     """
     B = r.shape[-1]
     v = r.reshape(nj_c, 2, ni_c, 2, B)
@@ -68,7 +57,7 @@ def _tile_prolong(e, P4, nj_c, ni_c):
 
 
 class PallasVCycle:
-    """Builds the fused kernel from an assembled hierarchy.
+    """Builds the rolled-layout cycle from an assembled hierarchy.
 
     Parameters mirror MultigridSolver; ``dims``: [(Nj, Ni)] per level,
     coarsest first.  The coarse level follows the configured
@@ -77,12 +66,11 @@ class PallasVCycle:
     """
 
     def __init__(self, ops, transfers, types, settings, dims,
-                 dtype=jnp.float32, interpret=False):
+                 dtype=jnp.float32):
         self.settings = settings
         self.types = types
         self.transfers = transfers
         self.dtype = dtype
-        self.interpret = interpret
         self.n_lev = len(ops)
         self.dims = list(dims)
         self.blocks = [rolled.to_rolled(op, self.dims[k][1], self.dims[k][0])
@@ -103,7 +91,7 @@ class PallasVCycle:
                                       "cycle_type", "V")).upper()
         if self.cycle_type not in ("V", "W", "F"):
             raise NotImplementedError(
-                f"the fused kernels implement V, W and F, not "
+                f"the rolled and SoA cycles implement V, W and F, not "
                 f"{self.cycle_type!r}")
         self.coarse_solver = settings.solver.multigrid.coarse_grid_solver
         if self.coarse_solver in ("direct", "amg"):
@@ -113,9 +101,8 @@ class PallasVCycle:
             # column-blocked layout (M_src, nj, ni, B_dst, B_src): slice m
             # scales source cell m's rhs into the whole coarse grid.  The
             # solve is then a fori_loop of M bmv-accumulations with dynamic
-            # leading-dim ref indexing — compile size O(1) in the grid (the
-            # round-1 statically unrolled double loop made Mosaic compile
-            # time explode beyond the 8x8 flagship).
+            # leading-dim indexing — graph size O(1) in the coarse grid
+            # (a statically unrolled double loop grows with it).
             import numpy as np
             M0 = nj0 * ni0
             inv_col = (np.asarray(inv).reshape(M0, B0, M0, B0)
@@ -141,9 +128,8 @@ class PallasVCycle:
             else:
                 self.R.append(t.R.astype(dtype))
                 self.P.append(t.P.astype(dtype))
-        self._fn = None
 
-    # ---- value-level cycle (runs inside the kernel) -------------------------
+    # ---- value-level cycle ----------------------------------------------------
 
     def _restrict(self, k, R, r):
         t = self.transfers[k]
@@ -192,10 +178,8 @@ class PallasVCycle:
         if inv_col is None:
             # 10 iterations of the pre-smoother (solver.py:199-204 semantics)
             return self._smooth(0, consts, rhs, u, 20)
-        # inv_col may be a Pallas Ref (dynamic leading-dim indexing inside
-        # the loop) or a plain array (XLA build) — same indexing either way
         B = rhs.shape[-1]
-        rhs_flat = rhs.reshape(nj * ni, B)      # leading-dim merge (Mosaic-ok)
+        rhs_flat = rhs.reshape(nj * ni, B)
 
         def body(m, acc):
             return acc + rolled.bmv(inv_col[m], rhs_flat[m])
@@ -220,12 +204,10 @@ class PallasVCycle:
         u = self._smooth(k, consts, rhs, u, 2 * post)
         return u
 
-    def _fmg(self, consts, rhs, skip_finest=False):
+    def _fmg(self, consts, rhs):
         """Full-multigrid (nested-iteration) guess in rolled layout:
         restrict the rhs to the coarsest level, solve, prolong upward with
-        one configured cycle per level (MultigridSolver.fmg_guess analog).
-        With ``skip_finest`` the finest-level cycle is left to the caller
-        (who runs it through the fused Mosaic kernel)."""
+        one configured cycle per level (MultigridSolver.fmg_guess analog)."""
         _, _, _, Rs, Ps, _ = consts
         rhss = [rhs]
         for k in range(self.n_lev - 1, 0, -1):
@@ -234,34 +216,24 @@ class PallasVCycle:
         u = self._coarse_solve(consts, rhss[0], jnp.zeros_like(rhss[0]))
         for k in range(1, self.n_lev):
             u = self._prolong(k - 1, Ps[k - 1], u)
-            if skip_finest and k == self.n_lev - 1:
-                return u
             u = self._cycle(k, consts, rhss[k], u)
         return u
 
-    def build_fmg(self, finest_cycle=None):
-        """fmg(rhs) -> u0: the FMG guess as one jitted XLA graph (one-shot
-        per solve — not worth a Mosaic kernel compile).  ``finest_cycle``:
-        optional already-built fused cycle ``(rhs, u) -> u`` run in place
-        of the finest level's XLA cycle (the dominant cost of the pass)."""
+    def build_fmg(self):
+        """fmg(rhs) -> u0: the FMG guess as one jitted XLA graph."""
         nj, ni = self.dims[-1]
         B = self.blocks[-1].shape[-1]
         consts = self._host_consts() + (list(self.R), list(self.P),
                                         self.coarse_inv_col)
-        # n_lev == 1: no finest-level cycle to replace (see pallas_soa)
-        skip = finest_cycle is not None and self.n_lev > 1
-        cyc = getattr(finest_cycle, "__wrapped__", finest_cycle)
 
         @const_jit
         def fmg(rhs):
-            r32 = rhs.astype(self.dtype)
-            r = r32.reshape(nj, ni, B)
-            u = self._fmg(consts, r, skip_finest=skip).reshape(-1)
-            return cyc(r32, u) if skip else u
+            r = rhs.astype(self.dtype).reshape(nj, ni, B)
+            return self._fmg(consts, r).reshape(-1)
 
         return fmg
 
-    # ---- kernel construction -------------------------------------------------
+    # ---- graph construction --------------------------------------------------
 
     def _host_consts(self):
         """The per-level operator tuples in the active layout."""
@@ -270,100 +242,8 @@ class PallasVCycle:
                     list(self.evens))
         return (list(self.blocks), list(self.Dinv), list(self.masks))
 
-    def hbm_bytes_per_invocation(self):
-        """Operand bytes one fused-kernel launch DMAs HBM->VMEM.
-
-        The hierarchy is VMEM-resident inside the kernel, so each operand
-        array is read from HBM exactly once per launch — this IS the
-        cycle's actual HBM operator traffic (unlike the streamed path,
-        which re-reads blocks every half-sweep)."""
-        operands = ([self.split_blocks, self.split_Dinv, self.evens]
-                    if self.use_split
-                    else [self.blocks, self.Dinv, self.masks])
-        operands += [self.R, self.P, self.coarse_inv_col]
-        return sum(int(leaf.size) * leaf.dtype.itemsize
-                   for leaf in jax.tree_util.tree_leaves(operands)
-                   if hasattr(leaf, "dtype"))
-
-    def build(self):
-        n_lev = self.n_lev
-        n_tr = n_lev - 1
-        has_inv = self.coarse_inv_col is not None
-        per_lev = 5 if self.use_split else 3
-        n_inputs = 2 + per_lev * n_lev + 2 * n_tr + (1 if has_inv else 0)
-
-        def kernel(*refs):
-            rhs_ref, u_ref = refs[0], refs[1]
-            off = 2
-            # operator blocks and diag inverses stay as VMEM *refs* — the
-            # rolled.* helpers load slot slices lazily.  Materializing them
-            # here ([:]) would stack-copy every constant and double the
-            # kernel's VMEM footprint (measured OOM at 16x16: 121.75 MB).
-            if self.use_split:
-                blocks = [(refs[off + 2 * k], refs[off + 2 * k + 1])
-                          for k in range(n_lev)]; off += 2 * n_lev
-                Dinv = [(refs[off + 2 * k], refs[off + 2 * k + 1])
-                        for k in range(n_lev)]; off += 2 * n_lev
-                sel = [refs[off + k][:] for k in range(n_lev)]; off += n_lev
-            else:
-                blocks = [refs[off + k] for k in range(n_lev)]; off += n_lev
-                Dinv = [refs[off + k] for k in range(n_lev)]; off += n_lev
-                sel = [refs[off + k][:] for k in range(n_lev)]; off += n_lev
-            Rs = [refs[off + k][:] for k in range(n_tr)]; off += n_tr
-            Ps = [refs[off + k][:] for k in range(n_tr)]; off += n_tr
-            # the coarse inverse stays a Ref: the fori_loop coarse solve
-            # slices one column tile per iteration (dynamic leading index)
-            inv_col = refs[off] if has_inv else None
-            out_ref = refs[-1]
-            consts = (blocks, Dinv, sel, Rs, Ps, inv_col)
-            out_ref[:] = self._cycle(n_lev - 1, consts, rhs_ref[:], u_ref[:])
-
-        nj, ni = self.dims[-1]
-        B = self.blocks[-1].shape[-1]
-        out_shape = jax.ShapeDtypeStruct((nj, ni, B), self.dtype)
-        vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-
-        call = pl.pallas_call(
-            kernel,
-            out_shape=out_shape,
-            in_specs=[vspec] * n_inputs,
-            out_specs=vspec,
-            interpret=self.interpret,
-            # the whole hierarchy lives in VMEM; the default 16 MiB scoped
-            # limit is far exceeded by the resident operator blocks.  The
-            # (B, B) tiles pad to (8k, 128) lanes, so the 8.1 MB flagship
-            # hierarchy occupies ~112 MB padded at 16x16 — right at the
-            # v5e 128 MB physical VMEM, hence 120 MB (measured: 112.33 MB
-            # stack allocation at 16x16 p=5).
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=120 * 1024 * 1024),
-        )
-
-        if self.use_split:
-            consts = (*[b for bc in self.split_blocks for b in bc],
-                      *[d for dc in self.split_Dinv for d in dc],
-                      *self.evens, *self.R, *self.P)
-        else:
-            consts = (*self.blocks, *self.Dinv, *self.masks, *self.R, *self.P)
-        if has_inv:
-            consts = (*consts, self.coarse_inv_col)
-
-        @const_jit
-        def one_cycle(rhs, u):
-            rhs = rhs.reshape(nj, ni, B).astype(self.dtype)
-            u = u.reshape(nj, ni, B).astype(self.dtype)
-            out = call(rhs, u, *consts)
-            return out.reshape(-1)
-
-        self._fn = one_cycle
-        return one_cycle
-
     def build_xla(self):
-        """The same fused rolled-layout cycle as plain jitted XLA ops.
-
-        Useful as an apples-to-apples comparison point for the Pallas kernel
-        and as the fast path wherever Mosaic is unavailable.
-        """
+        """One rolled-layout cycle ``(rhs, u) -> u`` as a jitted XLA graph."""
         nj, ni = self.dims[-1]
         B = self.blocks[-1].shape[-1]
         consts = self._host_consts() + (list(self.R), list(self.P),
@@ -391,8 +271,3 @@ class PallasVCycle:
         if self.coarse_inv_col is not None:
             self.coarse_inv_col = jax.device_put(self.coarse_inv_col, device)
         return self
-
-    def __call__(self, rhs, u):
-        if self._fn is None:
-            self.build()
-        return self._fn(rhs, u)

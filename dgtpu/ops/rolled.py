@@ -1,7 +1,7 @@
 """Roll-layout stencil operations.
 
-The gather-based StencilOperator is the general representation; on TPU the
-structured element grid allows a gather-free layout::
+The gather-based StencilOperator is the general representation; the
+structured element grid also allows a gather-free layout::
 
     blocks : (Nj, Ni, 5, B, B)    vectors : (Nj, Ni, B)
 
@@ -9,14 +9,9 @@ where the i-neighbors are circular rolls along axis 1 and the j-neighbors
 shifts along axis 0 (zero halos at physical boundaries — the corresponding
 blocks are zero, so rolls are harmless even for Dirichlet topologies, and
 exact for O-grid wrap).  These value-level functions are shared by the
-single-chip fast path, the Pallas fused V-cycle, and the shard_map halo
-version (which replaces the j-shifts with ppermute exchanges).
-
-``blocks``/``Dinv`` operands may be either arrays or Pallas VMEM *refs*:
-every access goes through slicing (``x[:, :, s]`` / ``x[...]``), which is a
-lazy load on a ref and a no-op on an array.  Keeping operators as refs
-inside the fused kernel matters — materializing them up front doubles the
-kernel's VMEM footprint (inputs + stack copies) and OOMs at 16x16.
+rolled-layout cycle (``ops/pallas_vcycle.py``), the SoA cycles' layout
+conversions, and the shard_map halo version (which replaces the j-shifts
+with ppermute exchanges).
 """
 
 import jax
@@ -27,11 +22,8 @@ def bmv(blocks, u):
     """Batched block matvec (..., a, b) x (..., b) -> (..., a).
 
     Leading batch dims are flattened into ONE batch dim and the contraction
-    runs as a single-batch ``dot_general``: Mosaic (Pallas TPU) lowers that
-    as one op, whereas it does not lower multi-batch-dim tpu.matmul, and the
-    broadcast-multiply-reduce spelling unrolls the leading dims into one
-    vector-op sequence *per cell* (measured: 548 s Mosaic compile for four
-    smoother passes on a 16x16 grid vs ~4 s in this form).
+    runs as a single-batch ``dot_general``, one batched matrix-vector op
+    regardless of the grid shape.
 
     ``u`` may also be a single vector (b,) broadcast against every block
     (the coarse-solve accumulation uses this).
@@ -62,9 +54,7 @@ def vec_to_rolled(v, Ni, Nj, B):
 def _shift_j(u, up):
     """Neighbor fields in the j direction with zero halos."""
     if u.shape[0] == 1:
-        # a single row's j-neighbors are both zero halos; u[:-1]/u[1:]
-        # would be zero-size slices, which Mosaic rejects ("vector types
-        # must have positive constant sizes")
+        # a single row's j-neighbors are both zero halos
         return jnp.zeros_like(u)
     zero = jnp.zeros_like(u[:1])
     if up:
@@ -106,8 +96,8 @@ def checkerboard(Nj, Ni, dtype=jnp.int32):
 def rb_gs_sweeps(blocks, Dinv, rhs, u, colors, n_color_passes):
     """n_color_passes red/black half-sweeps (2 per symmetric GS iteration).
 
-    The pass loop is a ``fori_loop`` (value carry) so the body compiles once
-    — unrolled passes made Mosaic compile time scale with pass count.
+    The pass loop is a ``fori_loop`` (value carry) so the body compiles
+    once instead of once per pass.
     """
     def body(_, u):
         for c in (0, 1):
@@ -120,8 +110,8 @@ def rb_gs_sweeps(blocks, Dinv, rhs, u, colors, n_color_passes):
 
 
 def color_masks(Nj, Ni, dtype):
-    """Float checkerboard masks (2, Nj, Ni, 1) — the Mosaic-friendly color
-    select (integer compare + where does not lower in Pallas TPU)."""
+    """Float checkerboard masks (2, Nj, Ni, 1): colors are selected by
+    multiply-blend instead of integer compare + where."""
     import numpy as np
     cb = np.asarray(checkerboard(Nj, Ni))
     return jnp.asarray(np.stack([(cb == 0), (cb == 1)])
@@ -129,7 +119,7 @@ def color_masks(Nj, Ni, dtype):
 
 
 def rb_gs_sweeps_masked(blocks, Dinv, rhs, u, masks, n_color_passes):
-    """rb_gs_sweeps with precomputed float masks (Pallas-safe)."""
+    """rb_gs_sweeps with precomputed float masks."""
     def body(_, u):
         for c in (0, 1):
             off = offdiag_matvec(blocks, u)
@@ -158,7 +148,7 @@ def jacobi_sweeps(blocks, Dinv, rhs, u, n, omega=0.8):
 # Neighbor fields of one color are row-parity-dependent rolls of the *other*
 # color's lattice, so a packed red-black sweep touches exactly half the
 # operator per color pass (the ColorPack win) while staying expressible with
-# rolls, shifts and float masks only — the Mosaic (Pallas TPU) safe subset.
+# rolls, shifts and float masks only.
 
 
 def parity_mask(Nj, dtype):
@@ -204,8 +194,7 @@ def split_neighbor_fields(other, color, even):
     """
     if other.shape[1] == 1:
         # Ni == 2: the packed lattice is one cell wide, a roll by +-1 is
-        # the identity (and Mosaic rejects the zero-size slice a roll on a
-        # size-1 axis lowers to)
+        # the identity
         roll_p = roll_m = other
     else:
         roll_p = jnp.roll(other, 1, axis=1)     # ip - 1

@@ -14,14 +14,14 @@ pyamg's ``bsr_gauss_seidel`` solves the diagonal block per block row, and
 its plain ``gauss_seidel``/``jacobi`` splitting solves use the block
 diagonal from ``split_block_EDF``.)
 
-Two TPU execution strategies:
+Two execution strategies:
 
 * ``sequential`` — a ``lax.scan`` over element rows, bit-faithful to the
   reference/pyamg lexicographic sweep (forward/backward/symmetric).  This is
   the parity mode used to reproduce residual histories.
 * ``redblack`` — checkerboard-colored sweeps: each color updates as one
-  batched solve, 2 fused steps per sweep, no sequential dependence — the TPU
-  fast path.  (A permitted numerical deviation: the iteration matrix differs
+  batched solve, 2 fused steps per sweep, no sequential dependence — the
+  parallel fast path.  (A permitted numerical deviation: the iteration matrix differs
   from lexicographic GS; offered under the same config strings via
   ``performance.smoother_parallelization``.)
 
@@ -35,7 +35,7 @@ import jax.numpy as jnp
 
 
 def block_diag_inv(op):
-    # setup-time inversion on host LAPACK (TPU XLA has no f64 LU; see ops.linalg)
+    # setup-time inversion on host LAPACK (see ops.linalg)
     from dgtpu.ops.linalg import host_inv
     return host_inv(op.diag_blocks())
 
@@ -164,7 +164,7 @@ def estimate_rho_dinv_a(op, Dinv=None, iterations=30, seed=7):
 
 def chebyshev(op, rhs, u, degree=3, eig_max=None, eig_ratio=0.3, Dinv=None):
     """Chebyshev polynomial smoother on the block-Jacobi-preconditioned
-    operator — the TPU-first smoother: ``degree`` stencil matvecs and
+    operator — the parallel-first smoother: ``degree`` stencil matvecs and
     batched block solves, no sequential sweep, no coloring, no
     data-dependent control flow (hypre/AMGcl-style; no reference
     equivalent, relaxation.py has only Jacobi/GS variants).
@@ -276,7 +276,7 @@ def normalize_smoother_name(name):
 def apply_smoother(name, op, rhs, u, direction="symmetric", omega=1.0,
                    iterations=1, Dinv=None, strategy="sequential", colors=None,
                    pack=None, eig_max=None, eig_ratio=None):
-    """Dispatch a reference smoother string onto the TPU kernels.
+    """Dispatch a reference smoother string onto the batched smoothers.
 
     For ``chebyshev``, ``iterations`` is the polynomial degree.  The
     smoothing-interval lower end comes from ``eig_ratio`` (fraction of

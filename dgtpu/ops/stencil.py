@@ -1,20 +1,20 @@
-"""Block-stencil operators — the TPU-native replacement for scipy BSR.
+"""Block-stencil operators — the batched replacement for scipy BSR.
 
 The reference assembles a scipy ``bsr_array`` with at most 5 blocks per block
-row (self + 4 neighbors, ``discrete_system.py:135-145``).  On TPU the natural
-layout is a dense *stencil tensor*::
+row (self + 4 neighbors, ``discrete_system.py:135-145``).  On an accelerator
+the natural layout is a dense *stencil tensor*::
 
     blocks : (N, 5, Br, Bc)   slot order [self, iL, iR, jL, jR]
     nbr    : (N, 5) int32     neighbor element index (self for masked slots)
     mask   : (N, 5) bool      False where no neighbor (blocks are zero there)
 
-Matvec is one gather + one batched einsum — MXU-friendly, static shapes, no
-sparse formats.  Operators compose into saddle-point block matrices for
+Matvec is one gather + one batched einsum — static shapes, no sparse
+formats.  Operators compose into saddle-point block matrices for
 Stokes (see ``dgtpu/models/stokes.py``).
 
 ``DenseOperator`` covers derived operators whose sparsity is wider than the
 5-point stencil (Schur complements, D@G products) — at the reference's
-problem sizes these are small enough that dense is the fast TPU layout.
+problem sizes these are small enough that dense is the fast layout.
 """
 
 from dataclasses import dataclass

@@ -257,66 +257,6 @@ def _pnorm2(x):
     return jnp.sqrt(s / n)
 
 
-def _pnorm2_pair(hi, lo):
-    """Global size-normalized L2 norm of a df32 pair (f32 arithmetic: the
-    lo half sits ~2^-24 below hi, far under the norm's own rounding)."""
-    return _pnorm2(hi + lo)
-
-
-def _df32_fold_blocks(blocks64):
-    """Host: (Nj, Ni, 5, Br, Bc) f64 stencil -> (hh, hl, lo) f32 triples
-    folded to (K, Nj, Ni, Br) MAC steps, K = 5 * Bc — the sharded df32
-    residual operand (ops/df32.py layout adapted to the halo grid)."""
-    from dgtpu.ops.df32 import split_triple_np
-    b = np.asarray(blocks64, np.float64)
-    nj, ni, s, br, bc = b.shape
-
-    def fold(a):
-        return jnp.asarray(np.ascontiguousarray(
-            a.transpose(2, 4, 0, 1, 3).reshape(s * bc, nj, ni, br)))
-
-    return tuple(fold(a) for a in split_triple_np(b))
-
-
-def _df32_accumulate_with_halo(state, trip, u_hi, u_lo):
-    """Fold ``-A @ u`` into a compensated (s, e, e3) accumulator on the
-    local band, with ppermute halo rows for both pair halves (same bytes
-    as one f64 halo); slot/field order matches ``_local_matvec``."""
-    from dgtpu.ops.df32 import accumulate_step, split12
-    hh, hl, lo = trip
-    K = hh.shape[0]
-
-    def fields(u, up, dn):
-        jL = jnp.concatenate([up[None], u[:-1]], axis=0)
-        jR = jnp.concatenate([u[1:], dn[None]], axis=0)
-        f = jnp.stack([u, jnp.roll(u, 1, axis=1), jnp.roll(u, -1, axis=1),
-                       jL, jR])                          # (5, Nj, Ni, Bc)
-        return f.transpose(0, 3, 1, 2).reshape(K, *u.shape[:2])
-
-    g_hi = fields(u_hi, *_halo_exchange(u_hi))
-    g_lo = fields(u_lo, *_halo_exchange(u_lo))
-    g_hh, g_hl = split12(g_hi)
-
-    def body(k, state):
-        return accumulate_step(state, -hh[k], -hl[k], -lo[k],
-                               g_hh[k][..., None], g_hl[k][..., None],
-                               g_hi[k][..., None], g_lo[k][..., None])
-
-    return jax.lax.fori_loop(0, K, body, state)
-
-
-def _df32_residual_with_halo(trip, b_hi, b_lo, u_hi, u_lo):
-    """(b - A u) as f32 pairs on the local band — the compensated
-    double-single residual (``ops/df32.py``) composed with the halo
-    exchange.  Removes the emulated-f64 operator matvec from the sharded
-    refinement loop on TPU while keeping 48-bit-accurate defects.
-    """
-    from dgtpu.ops.df32 import two_sum
-    s, e, e3 = _df32_accumulate_with_halo(
-        (b_hi, b_lo, jnp.zeros_like(b_hi)), trip, u_hi, u_lo)
-    return two_sum(s, e + e3)
-
-
 _KIND_TO_NODE = {"penalty": "penalty_parameter_coarsening",
                  "polynomial": "polynomial_coarsening",
                  "geometric": "geometric_coarsening",
@@ -688,25 +628,15 @@ class ShardedMultigrid:
                 tuple(pm.astype(f32) for pm in self.Pr))
         return self._data32_cache
 
-    def _df32_trip(self):
-        """Host-side df32 split of the finest operator blocks (cached)."""
-        if getattr(self, "_df32_cache", None) is None:
-            self._df32_cache = _df32_fold_blocks(self.blocks[-1])
-        return self._df32_cache
-
-    def build_refined(self, tol=1e-10, n_inner=6, max_outer=20,
-                      defect="auto"):
+    def build_refined(self, tol=1e-10, n_inner=6, max_outer=20):
         """Sharded mixed-precision defect correction (solvers/refinement.py
         composed with the mesh): one defect residual per outer round, the
         inner correction as n_inner f32 sharded V-cycles — >95% of the work
         in native-speed float32 while the outer loop reaches the 1e-10
         BASELINE parity target.
 
-        ``defect='df32'`` (the 'auto' default) evaluates the residual as a
-        compensated double-single halo matvec (``_df32_residual_with_halo``)
-        and carries the iterate as an f32 pair: no emulated-f64 operator
-        work anywhere in the loop.  ``defect='f64'`` keeps the (emulated)
-        float64 halo matvec — the reference's arithmetic.
+        The residual is a float64 halo matvec — the reference's
+        arithmetic.
 
         With ``solver.multigrid.full_multigrid`` on, the outer loop is
         seeded with the shard-local f32 FMG (nested-iteration) guess
@@ -724,7 +654,6 @@ class ShardedMultigrid:
                       tuple(P(AXIS) for _ in self.Dinv),
                       tuple(P(AXIS) for _ in self.colors), P(), pack_specs,
                       self.R_specs, tuple(P() for _ in self.Pr))
-        use_df32 = defect in ("auto", "df32")
         fmg_seed = self.full_multigrid
 
         def inner(data, r32):
@@ -765,85 +694,28 @@ class ShardedMultigrid:
             hist = hist.at[n].set(res)
             return u, res, n, hist
 
-        def solve_local_df32(trip, blocks, Dinv, colors, coarse_inv, packs,
-                             Rs, Ps, b_hi, b_lo, u_hi, u_lo):
-            from dgtpu.ops.df32 import pair_add_f32
-            data = (blocks, Dinv, colors, coarse_inv, packs, Rs, Ps)
-            r_hi, r_lo = _df32_residual_with_halo(trip, b_hi, b_lo,
-                                                  u_hi, u_lo)
-            res0 = _pnorm2_pair(r_hi, r_lo)
-            if fmg_seed:
-                e32 = self._fmg(data, r_hi).astype(jnp.float32)
-                u_hi, u_lo = pair_add_f32(u_hi, u_lo, e32)
-                r_hi, r_lo = _df32_residual_with_halo(trip, b_hi, b_lo,
-                                                      u_hi, u_lo)
-            hist0 = jnp.full((max_outer + 1,), jnp.nan, dtype=jnp.float32)
-            tol32 = jnp.float32(tol)
-
-            def cond(state):
-                n, u_hi, u_lo, r_hi, r_lo, res, hist = state
-                return (n < max_outer) & (res >= tol32) & jnp.isfinite(res)
-
-            def body(state):
-                n, u_hi, u_lo, r_hi, r_lo, res, hist = state
-                hist = hist.at[n].set(res)
-                e32 = inner(data, r_hi).astype(jnp.float32)
-                u_hi, u_lo = pair_add_f32(u_hi, u_lo, e32)
-                r_hi, r_lo = _df32_residual_with_halo(trip, b_hi, b_lo,
-                                                      u_hi, u_lo)
-                res = _pnorm2_pair(r_hi, r_lo) / res0
-                return n + 1, u_hi, u_lo, r_hi, r_lo, res, hist
-
-            state = (jnp.asarray(0, dtype=jnp.int32), u_hi, u_lo, r_hi,
-                     r_lo, jnp.asarray(1.0, dtype=jnp.float32), hist0)
-            n, u_hi, u_lo, r_hi, r_lo, res, hist = \
-                jax.lax.while_loop(cond, body, state)
-            hist = hist.at[n].set(res)
-            return u_hi, u_lo, res, n, hist
-
-        if use_df32:
-            trip_spec = (P(None, AXIS),) * 3
-            fn = shard_map(solve_local_df32, mesh=mesh,
-                           in_specs=(trip_spec,) + data_specs
-                           + (spec, spec, spec, spec),
-                           out_specs=(spec, spec, P(), P(), P()),
-                           check_vma=False)
-        else:
-            fn = shard_map(solve_local_f64, mesh=mesh,
-                           in_specs=(P(AXIS),) + data_specs + (spec, spec),
-                           out_specs=(spec, P(), P(), P()),
-                           check_vma=False)
-        return jax.jit(fn), use_df32
+        fn = shard_map(solve_local_f64, mesh=mesh,
+                       in_specs=(P(AXIS),) + data_specs + (spec, spec),
+                       out_specs=(spec, P(), P(), P()),
+                       check_vma=False)
+        return jax.jit(fn)
 
     def solve_refined(self, rhs_vec, u0_vec=None, tol=1e-10, n_inner=6,
-                      max_outer=20, defect="auto"):
+                      max_outer=20):
         """f64-accuracy sharded solve; returns (u, res, n_outer)."""
-        from dgtpu.ops.df32 import pair_to_f64, split_f64
         B = self.levels[-1].N_DOF_sol_tot
         rhs = vec_to_grid(jnp.asarray(rhs_vec, dtype=jnp.float64),
                           self.Ni, self.Nj, B)
         u0 = (vec_to_grid(u0_vec, self.Ni, self.Nj, B) if u0_vec is not None
               else jnp.zeros_like(rhs))
-        fn, use_df32 = self.build_refined(tol=tol, n_inner=n_inner,
-                                          max_outer=max_outer, defect=defect)
+        fn = self.build_refined(tol=tol, n_inner=n_inner, max_outer=max_outer)
         blocks32, Dinv32, colors, cinv32, packs32, R32, P32 = self._data32()
         with self.mesh:
             sh = NamedSharding(self.mesh, P(AXIS))
-            if use_df32:
-                b_hi, b_lo = split_f64(rhs)
-                u_hi, u_lo = split_f64(u0)
-                args = tuple(jax.device_put(x, sh)
-                             for x in (b_hi, b_lo, u_hi, u_lo))
-                u_hi, u_lo, res, n, hist = fn(
-                    self._df32_trip(), blocks32, Dinv32, colors, cinv32,
-                    packs32, R32, P32, *args)
-                u = pair_to_f64(u_hi, u_lo)
-            else:
-                rhs = jax.device_put(rhs, sh)
-                u0 = jax.device_put(u0, sh)
-                u, res, n, hist = fn(self.blocks[-1], blocks32, Dinv32,
-                                     colors, cinv32, packs32, R32, P32,
-                                     rhs, u0)
+            rhs = jax.device_put(rhs, sh)
+            u0 = jax.device_put(u0, sh)
+            u, res, n, hist = fn(self.blocks[-1], blocks32, Dinv32, colors,
+                                 cinv32, packs32, R32, P32, rhs, u0)
         hist = np.asarray(hist)
         self.history = [float(r) for r in hist[np.isfinite(hist)]]
         return grid_to_vec(u), float(res), int(n)

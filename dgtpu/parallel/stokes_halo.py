@@ -163,25 +163,6 @@ def _saddle_residual(data, f_mom, f_cont, uv, p):
     return f_mom - _matvec(A, uv) - _matvec(G, p), f_cont - _matvec(D, uv)
 
 
-def _df32_saddle_residual(trips, bm_hi, bm_lo, bc_hi, bc_lo,
-                          uv_hi, uv_lo, p_hi, p_lo):
-    """Saddle residual as compensated double-single f32 pairs — the Stokes
-    analog of ``halo._df32_residual_with_halo``, composing the A, G, D
-    component accumulations before each finalize so the momentum residual
-    carries ONE compensated accumulator across both matvecs."""
-    from dgtpu.ops.df32 import two_sum
-    from dgtpu.parallel.halo import _df32_accumulate_with_halo
-    tripA, tripD, tripG = trips
-    st = _df32_accumulate_with_halo(
-        (bm_hi, bm_lo, jnp.zeros_like(bm_hi)), tripA, uv_hi, uv_lo)
-    s, e, e3 = _df32_accumulate_with_halo(st, tripG, p_hi, p_lo)
-    rm = two_sum(s, e + e3)
-    s, e, e3 = _df32_accumulate_with_halo(
-        (bc_hi, bc_lo, jnp.zeros_like(bc_hi)), tripD, uv_hi, uv_lo)
-    rc = two_sum(s, e + e3)
-    return rm, rc
-
-
 def _pnorm_pair(r_mom, r_cont):
     s = jax.lax.psum(jnp.sum(r_mom * r_mom) + jnp.sum(r_cont * r_cont), AXIS)
     n = jax.lax.psum(jnp.asarray(r_mom.size + r_cont.size, r_mom.dtype), AXIS)
@@ -561,26 +542,14 @@ class ShardedStokesMultigrid:
                                   Rs32, Ps32, packs32)
         return self._data32_cache
 
-    def _df32_trips(self):
-        """Host-side df32 splits of the finest A/D/G blocks (cached)."""
-        if getattr(self, "_df32_cache", None) is None:
-            from dgtpu.parallel.halo import _df32_fold_blocks
-            top = self.data[-1]
-            self._df32_cache = tuple(_df32_fold_blocks(b)
-                                     for b in (top.A, top.D, top.G))
-        return self._df32_cache
-
     def build_refined(self, tol=1e-10, n_inner=6, max_outer=20,
-                      defect="auto", inner="cycles"):
+                      inner="cycles"):
         """Sharded Stokes mixed-precision defect correction: one saddle
         defect residual per outer round (halo-exchange component matvecs),
         the inner correction as n_inner f32 sharded DGS V-cycles — the
         Stokes analog of ``halo.ShardedMultigrid.build_refined``.
 
-        ``defect='df32'`` (the 'auto' default) evaluates the saddle
-        residual in compensated double-single f32 and carries the iterate
-        as f32 pairs — no emulated-f64 operator work; ``defect='f64'``
-        keeps the (emulated) float64 component matvecs.
+        The component matvecs of the defect run in float64.
 
         ``inner='gmres'`` replaces the n_inner stationary cycles with
         GMRES(n_inner) right-preconditioned by one sharded cycle (the
@@ -600,7 +569,6 @@ class ShardedStokesMultigrid:
                            for d in self.data)
         Rs_specs = tuple((P(), P()) for _ in self.Ruv)
         apack_specs = tuple(pk.specs() for pk in self.a_packs)
-        use_df32 = defect in ("auto", "df32")
         inner_mode = inner
         # full_multigrid seeds the outer loop with the shard-local f32 FMG
         # guess on the initial defect (single-chip api.py parity); the
@@ -692,102 +660,32 @@ class ShardedStokesMultigrid:
             hist = hist.at[n].set(res)
             return uv, p, res, n, hist
 
-        def solve_local_df32(trips, datas, coarse_inv, Rs, Ps, apacks,
-                             bm_hi, bm_lo, bc_hi, bc_lo,
-                             uv_hi, uv_lo, p_hi, p_lo):
-            from dgtpu.ops.df32 import pair_add_f32
-            rm, rc = _df32_saddle_residual(trips, bm_hi, bm_lo, bc_hi,
-                                           bc_lo, uv_hi, uv_lo, p_hi, p_lo)
-            res0 = _pnorm_pair(rm[0] + rm[1], rc[0] + rc[1])
-            if fmg_seed:
-                duv, dp = self._fmg(datas, coarse_inv, Rs, Ps, apacks,
-                                    rm[0], rc[0])
-                uv_hi, uv_lo = pair_add_f32(uv_hi, uv_lo,
-                                            duv.astype(jnp.float32))
-                p_hi, p_lo = pair_add_f32(p_hi, p_lo,
-                                          dp.astype(jnp.float32))
-                rm, rc = _df32_saddle_residual(trips, bm_hi, bm_lo, bc_hi,
-                                               bc_lo, uv_hi, uv_lo,
-                                               p_hi, p_lo)
-            hist0 = jnp.full((max_outer + 1,), jnp.nan, dtype=jnp.float32)
-            tol32 = jnp.float32(tol)
-
-            def cond(state):
-                n, uvp, rm, rc, res, hist = state
-                return (n < max_outer) & (res >= tol32) & jnp.isfinite(res)
-
-            def body(state):
-                n, uvp, rm, rc, res, hist = state
-                uv_hi, uv_lo, p_hi, p_lo = uvp
-                hist = hist.at[n].set(res)
-                duv, dp = inner(datas, coarse_inv, Rs, Ps, apacks,
-                                rm[0], rc[0])
-                uv_hi, uv_lo = pair_add_f32(uv_hi, uv_lo,
-                                            duv.astype(jnp.float32))
-                p_hi, p_lo = pair_add_f32(p_hi, p_lo,
-                                          dp.astype(jnp.float32))
-                rm, rc = _df32_saddle_residual(trips, bm_hi, bm_lo, bc_hi,
-                                               bc_lo, uv_hi, uv_lo,
-                                               p_hi, p_lo)
-                res = _pnorm_pair(rm[0] + rm[1], rc[0] + rc[1]) / res0
-                return n + 1, (uv_hi, uv_lo, p_hi, p_lo), rm, rc, res, hist
-
-            state = (jnp.asarray(0, jnp.int32), (uv_hi, uv_lo, p_hi, p_lo),
-                     rm, rc, jnp.asarray(1.0, jnp.float32), hist0)
-            n, uvp, rm, rc, res, hist = jax.lax.while_loop(cond, body, state)
-            hist = hist.at[n].set(res)
-            return uvp[0], uvp[1], uvp[2], uvp[3], res, n, hist
-
-        if use_df32:
-            trip_spec = ((P(None, AXIS),) * 3,) * 3
-            fn = shard_map(solve_local_df32, mesh=mesh,
-                           in_specs=(trip_spec, data_specs, P(), Rs_specs,
-                                     Rs_specs, apack_specs) + (spec,) * 8,
-                           out_specs=(spec, spec, spec, spec, P(), P(),
-                                      P()),
-                           check_vma=False)
-        else:
-            fn = shard_map(solve_local_f64, mesh=mesh,
-                           in_specs=((P(AXIS),) * 3, data_specs, P(),
-                                     Rs_specs, Rs_specs, apack_specs, spec,
-                                     spec, spec, spec),
-                           out_specs=(spec, spec, P(), P(), P()),
-                           check_vma=False)
-        return jax.jit(fn), use_df32
+        fn = shard_map(solve_local_f64, mesh=mesh,
+                       in_specs=((P(AXIS),) * 3, data_specs, P(), Rs_specs,
+                                 Rs_specs, apack_specs, spec, spec, spec,
+                                 spec),
+                       out_specs=(spec, spec, P(), P(), P()),
+                       check_vma=False)
+        return jax.jit(fn)
 
     def solve_refined(self, rhs_global, u0_global=None, tol=1e-10,
-                      n_inner=6, max_outer=20, defect="auto",
-                      inner="cycles"):
+                      n_inner=6, max_outer=20, inner="cycles"):
         """f64-accuracy sharded Stokes solve; returns (u, res, n_outer)."""
-        from dgtpu.ops.df32 import pair_to_f64, split_f64
         f_mom, f_cont = self._split_fields(
             jnp.asarray(rhs_global, dtype=jnp.float64))
         if u0_global is None:
             uv0, p0 = jnp.zeros_like(f_mom), jnp.zeros_like(f_cont)
         else:
             uv0, p0 = self._split_fields(u0_global)
-        fn, use_df32 = self.build_refined(tol=tol, n_inner=n_inner,
-                                          max_outer=max_outer,
-                                          defect=defect, inner=inner)
+        fn = self.build_refined(tol=tol, n_inner=n_inner,
+                                max_outer=max_outer, inner=inner)
         datas32, cinv32, Rs32, Ps32, packs32 = self._data32()
         top = self.data[-1]
         with self.mesh:
             sh = NamedSharding(self.mesh, P(AXIS))
-            if use_df32:
-                pairs = sum((split_f64(x)
-                             for x in (f_mom, f_cont, uv0, p0)), ())
-                args = [jax.device_put(x, sh) for x in pairs]
-                uv_hi, uv_lo, p_hi, p_lo, res, n, hist = fn(
-                    self._df32_trips(), datas32, cinv32, Rs32, Ps32,
-                    packs32, *args)
-                uv = pair_to_f64(uv_hi, uv_lo)
-                p = pair_to_f64(p_hi, p_lo)
-            else:
-                args = [jax.device_put(x, sh)
-                        for x in (f_mom, f_cont, uv0, p0)]
-                uv, p, res, n, hist = fn((top.A, top.D, top.G), datas32,
-                                         cinv32, Rs32, Ps32, packs32,
-                                         *args)
+            args = [jax.device_put(x, sh) for x in (f_mom, f_cont, uv0, p0)]
+            uv, p, res, n, hist = fn((top.A, top.D, top.G), datas32, cinv32,
+                                     Rs32, Ps32, packs32, *args)
         hist = np.asarray(hist)
         self.history = [float(r) for r in hist[np.isfinite(hist)]]
         return self._join_fields(uv, p), float(res), int(n)

@@ -5,19 +5,104 @@ keys have spaces replaced by underscores and become attributes; dotted-path
 updates; CLI-kwarg overlay; cross-field validation asserts
 (Poisson => local ordering; Stokes multigrid => global ordering +
 multiply_inverse_mass_matrix).
+
+The paramfile is read by a small loader for the subset of YAML it uses
+(nested maps by indentation, ``#`` comments, YAML 1.1 scalars), so the
+package needs no YAML library.
 """
 
 import os
-
-import yaml
+import re
 
 DEFAULT_PARAMFILE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                  "input", "paramfile.yml")
 
+# YAML 1.1 core-schema scalars, as PyYAML's safe loader resolves them
+_NULL = {"", "~", "null", "Null", "NULL"}
+_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
+_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_OCT = re.compile(r"[-+]?0[0-7_]+$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?$")
+
+
+def parse_scalar(text):
+    """One plain or quoted YAML 1.1 scalar -> None/bool/int/float/str."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if text in _NULL:
+        return None
+    if text in _TRUE:
+        return True
+    if text in _FALSE:
+        return False
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _OCT.match(text):
+        return int(text.replace("_", ""), 8)
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    return text
+
+
+def _strip_comment(line):
+    """Drop a ``#`` comment (at line start or after whitespace, outside
+    quotes) and trailing whitespace."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_params(text):
+    """Parse the paramfile subset of YAML: ``key: value`` lines whose
+    indentation nests maps, keys may contain spaces, ``#`` starts a
+    comment.  A key with no value opens a nested map when the next line
+    is indented deeper, else maps to None."""
+    root = {}
+    stack = [(-1, root)]          # (indent, map) of every open map
+    pending = None                # (indent, parent, key) awaiting children
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        if "\t" in line[:indent + 1]:
+            raise ValueError(f"line {lineno}: tabs are not allowed in "
+                             "indentation")
+        if pending is not None:
+            p_indent, parent, key = pending
+            pending = None
+            if indent > p_indent:
+                child = {}
+                parent[key] = child
+                stack.append((p_indent, child))
+        while indent <= stack[-1][0]:
+            stack.pop()
+        key, sep, value = line.strip().partition(":")
+        if not sep or (value and not value.startswith((" ", "\t"))):
+            raise ValueError(f"line {lineno}: expected 'key: value', "
+                             f"got {raw!r}")
+        key, value = key.strip(), value.strip()
+        mapping = stack[-1][1]
+        if key in mapping:
+            raise ValueError(f"line {lineno}: duplicate key {key!r}")
+        mapping[key] = parse_scalar(value)
+        if not value:
+            pending = (indent, mapping, key)
+    return root
+
 
 def load_params(path=None):
     with open(path or DEFAULT_PARAMFILE) as f:
-        return yaml.safe_load(f)
+        return parse_params(f.read())
 
 
 class Settings:

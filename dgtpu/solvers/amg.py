@@ -5,7 +5,7 @@ The reference delegates to pyAMG's C++ Ruge-Stuben solver
 provided by a self-contained **smoothed-aggregation AMG**: host-side setup
 (strength graph, greedy aggregation, smoothed tentative prolongator, Galerkin
 RAP) with the V-cycles running on device as dense per-level operators — at the
-reference's problem sizes the dense layout is the fast TPU representation.
+reference's problem sizes the dense layout is the fast device representation.
 If pyamg is importable it is used instead for bit-parity with the reference.
 """
 

@@ -5,7 +5,7 @@ Reference: ``dgfem/relaxation.py:21-101``.  For each Fourier mode
 projected to modal space, one symmetric block-GS sweep is applied to the
 homogeneous system, and the amplitude is sampled at the four center elements.
 
-TPU-native translation: the reference loops over the 101x101 theta grid in
+Batched translation: the reference loops over the 101x101 theta grid in
 Python (10201 sequential smoother calls); here the *whole theta grid is one
 vmapped batch* of complex sweeps on device.
 """

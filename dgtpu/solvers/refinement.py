@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement: f64 accuracy at f32 multigrid speed.
 
-TPU f64 is software-emulated; the BASELINE parity target is a 1e-10
-residual.  Classic defect correction bridges the gap:
+The BASELINE parity target is a 1e-10 residual, which f32 multigrid alone
+cannot reach.  Classic defect correction bridges the gap:
 
     loop:  r = b - A u            (high precision, ONE matvec per outer step)
            e ~ A^-1 r             (k float32 V-cycles — the fast path)
@@ -11,19 +11,9 @@ The f32 inner solve only needs to reduce the defect by ~1e-6 per outer
 iteration, so the outer loop reaches 1e-10..1e-14 in a handful of rounds
 while >95% of the work runs in native-speed float32.
 
-Two defect backends:
-
-* ``defect='f64'`` — the residual runs in (emulated) float64, exactly the
-  reference's arithmetic (``solver.py:114-123`` runs native f64 NumPy).
-* ``defect='df32'`` (default via ``'auto'``) — the residual runs as a
-  compensated double-single f32 evaluation (``ops/df32.py``): identical
-  48-bit-accurate defects with NO emulated-f64 operator work, removing
-  what measurement shows is ~90% of the refined-solve time on TPU.  The
-  iterate is carried as an (hi, lo) f32 pair; only the final answer is
-  widened back to f64.
+The defect runs in float64, exactly the reference's arithmetic
+(``solver.py:114-123`` runs native f64 NumPy).
 """
-
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +23,12 @@ from dgtpu.utils.norms import lp_norm
 
 
 def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
-                        defect="auto", normalize="u0", inner="cycles",
+                        normalize="u0", inner="cycles",
                         matvec32=None):
     """Build a jitted mixed-precision solver.
 
     ``op64``: the float64 operator (matvec).  ``cycle32(rhs32, u32)``: one
-    float32 V-cycle.  ``defect``: 'f64', 'df32', or 'auto' (df32 when the
-    operator type has a compensated path, f64 otherwise).
+    float32 V-cycle.
     ``normalize``: 'u0' divides residuals by ||b - A u0|| (the classic
     relative criterion for a zero guess); 'rhs' divides by ||b|| — use this
     when u0 is an FMG guess, so the tolerance keeps its
@@ -57,8 +46,6 @@ def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
     iterations instead of blowing up the outer loop.
     Returns solve(rhs64, u0) -> (u, res, n_outer, history).
     """
-    if defect not in ("auto", "df32", "f64"):
-        raise ValueError(defect)
     if normalize not in ("u0", "rhs"):
         raise ValueError(normalize)
     if inner not in ("cycles", "gmres"):
@@ -71,31 +58,15 @@ def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
     else:
         def inner_solve(r32):
             return _inner(cycle32, n_inner, r32)
-    if defect in ("auto", "df32"):
-        from dgtpu.ops.df32 import DF32Unsupported, make_df32_residual
-        try:
-            df = make_df32_residual(op64)
-        except DF32Unsupported as e:
-            # only the intended "operator type has no compensated path"
-            # signal — any other error in the df32 builders propagates
-            # instead of silently degrading to the 20-50x emulated-f64
-            # defect
-            if defect == "df32":
-                raise
-            logging.getLogger("dgtpu").info(
-                f"df32 defect unavailable ({e}); using the f64 defect")
-        else:
-            return _make_df32_solver(df, inner_solve, tol, max_outer,
-                                     normalize)
     return _make_f64_solver(op64, inner_solve, tol, max_outer,
                             normalize)
 
 
 def _inner(cycle32, n_inner, r32):
-    e = jnp.zeros_like(r32)
-    for _ in range(n_inner):
-        e = cycle32(r32, e)
-    return e
+    # a loop, not n_inner unrolled copies of the cycle: the compiled graph
+    # holds one cycle, which keeps the GPU compile of large cycles short
+    return jax.lax.fori_loop(0, n_inner, lambda _, e: cycle32(r32, e),
+                             jnp.zeros_like(r32))
 
 
 def gmres_correction(AM, M, r, m, dot=None, norm=None):
@@ -111,8 +82,7 @@ def gmres_correction(AM, M, r, m, dot=None, norm=None):
 
     Hand-rolled rather than ``jax.scipy.sparse.linalg.gmres`` because that
     one is built on ``lax.custom_linear_solve``, which transposes the
-    operator at trace time — Pallas kernels (the streamed/fused cycles and
-    matvecs) define no transpose rule.  A static ``m``-step Arnoldi with a
+    operator at trace time, and a cycle need not define a transpose rule.  A static ``m``-step Arnoldi with a
     dense (m+1) x m least-squares finish is also exactly the fixed,
     jit-friendly work profile the outer defect loop wants, and right
     preconditioning keeps the minimized residual that of the TRUE system
@@ -141,9 +111,9 @@ def gmres_correction(AM, M, r, m, dot=None, norm=None):
                  * w / jnp.maximum(hj1, tiny))
     # min ||beta e1 - H y|| via explicit Givens QR + back-substitution:
     # H is (m+1) x m upper Hessenberg with tiny m, so the unrolled
-    # scalar form is cheap — and it avoids SVD/QR primitives, which
-    # the TPU compiler mishandles inside this while_loop (observed
-    # TransposeFolding crash lowering jnp.linalg.lstsq here)
+    # scalar form is cheap — and it avoids SVD/QR primitives inside
+    # this while_loop (lowering jnp.linalg.lstsq here crashed one XLA
+    # backend's TransposeFolding pass)
     g = jnp.zeros((m + 1,), dt).at[0].set(beta)
     R = H
     for j in range(m):
@@ -185,8 +155,8 @@ def _make_gmres_inner(matvec32, cycle32, n_inner):
         dt = r32.dtype
 
         def M(x):
-            # an f64 inner cycle (the CPU interpret stand-in used in
-            # tests) must not widen the f32 defect
+            # an f64 inner cycle (used in tests) must not widen the f32
+            # defect
             return cycle32(x, jnp.zeros_like(x)).astype(dt)
 
         def AM(x):
@@ -231,53 +201,5 @@ def _make_f64_solver(op64, inner_solve, tol, max_outer,
 
     def solve(rhs, u0):
         return solve_with_op(op64, rhs, u0)
-
-    return solve
-
-
-def _make_df32_solver(df, inner_solve, tol, max_outer,
-                      normalize="u0"):
-    from dgtpu.ops.df32 import (pair_add_f32, pair_norm2, pair_to_f64,
-                                split_f64)
-
-    tol32 = jnp.float32(tol)
-
-    @const_jit
-    def solve_with_df(df, b_hi, b_lo, u_hi, u_lo):
-        r_hi, r_lo = df(b_hi, b_lo, u_hi, u_lo)
-        res0 = (pair_norm2(b_hi, b_lo) if normalize == "rhs"
-                else pair_norm2(r_hi, r_lo))
-        hist0 = jnp.full((max_outer + 1,), jnp.nan, dtype=jnp.float32)
-
-        def cond(state):
-            n, u_hi, u_lo, r_hi, r_lo, res, hist = state
-            return (n < max_outer) & (res >= tol32) & jnp.isfinite(res)
-
-        def body(state):
-            n, u_hi, u_lo, r_hi, r_lo, res, hist = state
-            hist = hist.at[n].set(res)
-            # cast: an f64 inner cycle (the CPU interpret stand-in used in
-            # tests) must not widen the f32 pair state
-            e32 = inner_solve(r_hi).astype(jnp.float32)
-            u_hi, u_lo = pair_add_f32(u_hi, u_lo, e32)
-            r_hi, r_lo = df(b_hi, b_lo, u_hi, u_lo)
-            res = pair_norm2(r_hi, r_lo) / res0
-            return n + 1, u_hi, u_lo, r_hi, r_lo, res, hist
-
-        state = (jnp.asarray(0, dtype=jnp.int32), u_hi, u_lo, r_hi, r_lo,
-                 pair_norm2(r_hi, r_lo) / res0, hist0)
-        n, u_hi, u_lo, r_hi, r_lo, res, hist = \
-            jax.lax.while_loop(cond, body, state)
-        hist = hist.at[n].set(res)
-        return u_hi, u_lo, res, n, hist
-
-    def solve(rhs, u0):
-        b_hi, b_lo = split_f64(rhs)
-        u_hi, u_lo = split_f64(u0)
-        u_hi, u_lo, res, n, hist = solve_with_df(df, b_hi, b_lo, u_hi, u_lo)
-        u = pair_to_f64(u_hi, u_lo)
-        if jnp.asarray(rhs).dtype != jnp.float64:
-            u = u.astype(jnp.asarray(rhs).dtype)
-        return u, res, n, hist
 
     return solve

@@ -1,8 +1,9 @@
 """Test configuration: force the CPU backend with 8 virtual devices.
 
 Tests validate float64 numerics (the reference is NumPy f64 and the parity
-target is 1e-10); the TPU fast path is exercised by bench.py on hardware.
-The 8 virtual CPU devices back the multi-chip sharding tests.
+target is 1e-10); the GPU path is exercised by ``chip_smoke.py`` and the
+``gpu``-marked tests on a machine with a card.  The 8 virtual CPU devices
+back the multi-device sharding tests.
 """
 
 import os
@@ -15,16 +16,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-# persistent compile cache: the 1-core suite is compile-dominated; cached
-# binaries cut reruns substantially (env vars are not plumbed in this jax
-# build — only jax.config.update works).  Kept separate from bench.py's
-# .jax_cache: loading the suite's CPU AOT entries from a process with a
-# different XLA:CPU backend config spams target-feature-mismatch errors.
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache_tests"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from dgtpu.utils.device import enable_compile_cache  # noqa: E402
+
+# CPU unless JAX_PLATFORMS names others: the gpu-marked tests run on a card
+# with JAX_PLATFORMS=cuda,cpu (set-up still needs the host CPU backend)
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
+# the suite keeps its own cache directory: loading CPU executables compiled
+# by a process with a different XLA:CPU configuration logs target-feature
+# mismatches
+enable_compile_cache(".jax_cache_tests")
 
 import dgtpu  # noqa: E402,F401  (enables x64)
 
@@ -40,8 +40,21 @@ INPUT_DIR = os.path.join(REPO, "input")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers",
-        "slow: heavy sharded/streamed/interpret tests — excluded from the "
+        "slow: heavy sharded/compile-bound tests — excluded from the "
         "fast lane (python -m pytest tests/ -q -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips without one (run on the card with "
+        "JAX_PLATFORMS=cuda,cpu python -m pytest tests/ -q -m gpu)")
+
+
+@pytest.fixture()
+def gpu_device():
+    """The first GPU device, or a skip when this process has none."""
+    try:
+        return jax.devices("gpu")[0]
+    except RuntimeError:
+        pytest.skip("no GPU device visible to JAX")
 
 
 @pytest.fixture(scope="session", autouse=True)

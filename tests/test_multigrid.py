@@ -89,7 +89,6 @@ def test_multigrid_numpy_oracle_vcycle(base_settings):
 
 def test_penalty_coarsening_path(base_settings, monkeypatch):
     """Penalty-parameter coarsening multigrid runs and converges (Poisson)."""
-    import yaml
     from dgtpu.settings import Settings, load_params
     params = load_params()
     params["solver"]["multigrid"]["penalty parameter coarsening"]["enabled"] = True
@@ -224,10 +223,8 @@ def test_full_multigrid_initial_guess():
 
 
 def test_f_cycle_streamed_rejects_fused_and_sharded_accept():
-    """cycle_type F: the streamed hybrids reject it early (never silently
-    run V — the round-2 verdict's silent-degrade concern), while the fused
-    and sharded builders accept it and converge (F support was added in
-    round 3: parallel/halo.py, ops/pallas_vcycle.py)."""
+    """cycle_type F: the rolled and sharded builders accept it and
+    converge (parallel/halo.py, ops/pallas_vcycle.py)."""
     import jax.numpy as jnp
 
     from dgtpu.api import DGFEM
@@ -248,15 +245,9 @@ def test_f_cycle_streamed_rejects_fused_and_sharded_accept():
     s.update_setting("solver.discretization", "dg")
     dg = DGFEM(settings=s, solve_multigrid=True)
 
-    # streamed hybrids implement V/W only -> must raise, not degrade to V
-    from dgtpu.ops.pallas_stream import StreamedVCycle
-    dims = [(l.Nj, l.Ni) for l in dg.levels]
-    with pytest.raises(NotImplementedError, match="V and W"):
-        StreamedVCycle([l.op for l in dg.levels], dg.transfers,
-                       dg.transfer_types, s, dims)
-
-    # fused builder accepts F and its cycle contracts
+    # the rolled builder accepts F and its cycle contracts
     from dgtpu.ops.pallas_vcycle import PallasVCycle
+    dims = [(l.Nj, l.Ni) for l in dg.levels]
     pv = PallasVCycle([l.op for l in dg.levels], dg.transfers,
                       dg.transfer_types, s, dims)
     one = pv.build_xla()
@@ -267,42 +258,13 @@ def test_f_cycle_streamed_rejects_fused_and_sharded_accept():
     op = dg.levels[-1].op
     r3 = float(jnp.linalg.norm(rhs.astype(jnp.float64) - op.matvec(
         u.astype(jnp.float64))) / jnp.linalg.norm(rhs))
-    assert r3 < 1e-2, f"fused F-cycle not contracting: {r3}"
+    assert r3 < 1e-2, f"rolled F-cycle not contracting: {r3}"
 
     # sharded builder accepts F and its cycle contracts
     sm = ShardedMultigrid([l for l in dg.levels], dg.transfers, s,
                           mesh=make_mesh(2))
     u_s, res_s, _ = sm.solve(dg.levels[-1].rhs)
     assert float(res_s) < 1e-6
-
-
-@pytest.mark.slow
-def test_stokes_streamed_rejects_f_cycle():
-    """The streamed Stokes hybrid implements V/W only; F must raise."""
-    from dgtpu.api import DGFEM
-    from dgtpu.ops.pallas_stokes_stream import StreamedStokesVCycle
-    from dgtpu.settings import Settings, load_params
-
-    params = load_params()
-    params["grid"]["filename"] = "Rectangle_4X4_nPoly2.xyz"
-    params["grid"]["polynomial degree"] = 2
-    params["problem"]["type"] = "Stokes"
-    params["solution"]["ordering"] = "global"
-    for ck in ("polynomial coarsening", "geometric coarsening"):
-        for side in ("pre smoother", "post smoother"):
-            params["solver"]["multigrid"][ck][side]["smoother"] = \
-                "distributive_gauss_seidel"
-    params["solver"]["multigrid"]["cycle type"] = "F"
-    params["visualization"]["export"] = False
-    params["visualization"]["automatically open paraview"] = False
-    params["logging"]["loglevel"] = "ERROR"
-    params["caching"]["enabled"] = False
-    s = Settings(params)
-    s.solver.method = "multigrid"
-    s.update_setting("solver.discretization", "dg")
-    dg = DGFEM(settings=s, solve_multigrid=True)
-    with pytest.raises(NotImplementedError, match="V and W"):
-        StreamedStokesVCycle(dg.levels, dg.transfers, dg.transfer_types, s)
 
 
 @pytest.mark.slow

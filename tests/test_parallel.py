@@ -599,13 +599,7 @@ def test_sharded_mixed_precision_refinement(base_settings):
     mg = ShardedMultigrid([coarse, lvl], [t], base_settings, mesh=make_mesh(8))
     u, res, n = mg.solve_refined(rhs, tol=1e-10)
     assert res < 1e-10, res
-    # both defect backends (compensated df32 default vs emulated f64)
-    # agree: same solution to ~1e-10 and comparable outer counts
-    u64, res64, n64 = mg.solve_refined(rhs, tol=1e-10, defect="f64")
-    assert res64 < 1e-10, res64
-    assert abs(int(n) - int(n64)) <= 1
-    scale = np.abs(np.asarray(u64)).max()
-    assert np.abs(np.asarray(u) - np.asarray(u64)).max() < 1e-9 * scale
+    assert 1 <= int(n) <= 8
     # true f64 residual of the returned vector
     r = np.asarray(rhs) - np.asarray(lvl.op.matvec(jnp.asarray(u)))
     assert np.linalg.norm(r) / np.linalg.norm(np.asarray(rhs)) < 1e-10
@@ -733,8 +727,7 @@ def test_sharded_f_cycle(base_settings):
 
 def test_sharded_fmg_seeds_mixed_refinement(base_settings):
     """VERDICT r4 item 6: ``full_multigrid`` seeds the sharded
-    mixed-precision outer loop with the shard-local f32 FMG guess (both
-    defect backends), reaching 1e-10 in no more outer rounds than the
+    mixed-precision outer loop with the shard-local f32 FMG guess, reaching 1e-10 in no more outer rounds than the
     zero-guess loop and strictly ahead after the first round, while the
     criterion stays normalized by the pre-seed residual."""
     lvl, rhs = _setup(base_settings)
@@ -755,12 +748,11 @@ def test_sharded_fmg_seeds_mixed_refinement(base_settings):
                                mesh=make_mesh(8))
         u1, res1, n1 = mg1.solve_refined(rhs, tol=1e-10)
         h1 = list(mg1.history)
-        u1b, res1b, n1b = mg1.solve_refined(rhs, tol=1e-10, defect="f64")
     finally:
         base_settings.update_setting("solver.multigrid.full_multigrid",
                                      False)
-    assert res1 < 1e-10 and res1b < 1e-10
-    assert n1 <= n0 and n1b <= n0
+    assert res1 < 1e-10
+    assert n1 <= n0
     # the seed engaged: after one outer round the seeded loop is ahead
     assert h1[1] < h0[1], (h1[:3], h0[:3])
     scale = np.abs(np.asarray(u0)).max()
